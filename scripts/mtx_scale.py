@@ -22,7 +22,7 @@ scale with the corpus stand-in:
      exactly (indices) / to f64 print precision (values), and the exact
      oracle y must agree;
   5. optionally (--cli) run the canonical CLI flow on the file:
-     ``python -m ehyb_spmv_gpu_tpu -m <path>.mtx -i 2000``.
+     ``python -m ehyb_spmv -m <path>.mtx -i 2000``.
 
 Usage: python scripts/mtx_scale.py [--n 68] [--cli] [--iters 2000]
 """
@@ -38,8 +38,8 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from ehyb_spmv_gpu_tpu.core.coo import MatrixCOO, coalesce  # noqa: E402
-from ehyb_spmv_gpu_tpu.io import generate, mtx  # noqa: E402
+from ehyb_spmv.core.coo import MatrixCOO, coalesce  # noqa: E402
+from ehyb_spmv.io import generate, mtx  # noqa: E402
 
 
 def _timed(fn):
@@ -123,7 +123,7 @@ def main() -> None:
     with open(path, "rb") as f:
         mtx.read_header(f)
         body = f.read()
-    from ehyb_spmv_gpu_tpu.native import parse_entries_native
+    from ehyb_spmv.native import parse_entries_native
 
     dt_parse = min(_timed(lambda: parse_entries_native(
         body, n_stored, True))[0] for _ in range(2))
@@ -135,7 +135,7 @@ def main() -> None:
     import unittest.mock as umock
 
     def fb():
-        with umock.patch("ehyb_spmv_gpu_tpu.native.parse_entries_native",
+        with umock.patch("ehyb_spmv.native.parse_entries_native",
                          side_effect=RuntimeError("fallback")):
             mtx._parse_entries(slice_body, hdr)
 
@@ -166,7 +166,7 @@ def main() -> None:
         print(f"== canonical CLI flow: -m {path} -i {args.iters}", flush=True)
         env = dict(os.environ)
         rc = subprocess.run(
-            [sys.executable, "-m", "ehyb_spmv_gpu_tpu", "-m", path,
+            [sys.executable, "-m", "ehyb_spmv", "-m", path,
              "-i", str(args.iters)], env=env)
         sys.exit(rc.returncode)
 

@@ -7,7 +7,7 @@ coordinator with ``--xla_force_host_platform_device_count`` virtual CPU
 devices, builds one global mesh spanning all processes, and drives
 ``ShardedEhybSpmv`` end-to-end (partition → reorder → shard-convert →
 compressed halo exchange → SPMD apply) with oracle validation.  This is the
-protocol a real multi-host TPU pod run uses — only the backend string and
+protocol a real multi-host GPU cluster run uses — only the backend string and
 coordinator address change.
 
 Usage:
@@ -38,11 +38,11 @@ def child(args) -> None:
     import numpy as np
 
     sys.path.insert(0, REPO)
-    from ehyb_spmv_gpu_tpu.config import EhybConfig
-    from ehyb_spmv_gpu_tpu.core.coo import deterministic_x, oracle_spmv
-    from ehyb_spmv_gpu_tpu.io import generate
-    from ehyb_spmv_gpu_tpu.parallel.spmv import AXIS, ShardedEhybSpmv
-    from ehyb_spmv_gpu_tpu.utils.validate import rel_error
+    from ehyb_spmv.config import EhybConfig
+    from ehyb_spmv.core.coo import deterministic_x, oracle_spmv
+    from ehyb_spmv.io import generate
+    from ehyb_spmv.parallel.spmv import AXIS, ShardedEhybSpmv
+    from ehyb_spmv.utils.validate import rel_error
 
     devs = np.array(jax.devices())  # global: procs * devs_per_proc
     assert devs.size == args.procs * args.devs_per_proc, devs

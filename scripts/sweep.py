@@ -1,20 +1,20 @@
 #!/usr/bin/env python
-"""Corpus sweep on real TPU: bench the flagship + baselines per matrix and
+"""Corpus sweep on one GPU: bench the flagship + baselines per matrix and
 write BENCH_SWEEP.md (the framework's analog of the paper's results table —
 the reference benches one matrix per run, README.md:8-13).
 
-Each (model, matrix) runs in its own subprocess via ``bench.py --run``.
+Each (model, matrix) runs in its own subprocess via ``bench.py --run``, one
+after another (one JAX process on the card at a time).
 Usage: python scripts/sweep.py [matrix ...]
 """
 from __future__ import annotations
 
-import json
 import os
 import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-from bench import run_child  # noqa: E402
+from bench import card_record, run_child  # noqa: E402
 
 DEFAULT = ["poisson2d_512", "stencil27_24", "fem3d_32",
            "fem3d_68_audikw_class", "random_16k", "powerlaw_16k",
@@ -22,22 +22,10 @@ DEFAULT = ["poisson2d_512", "stencil27_24", "fem3d_32",
            "permuted_poisson_4096", "random_1m", "random_4m",
            "powerlaw_1m"]
 MODELS = ["ehyb", "csr", "bcoo"]
-#: Entries with no recoverable structure also run the routed model (the
-#: gather-wall engine, models/routed.py) — reported in its own column.
-#: random_4m runs the column-block mode (4 vertical blocks).
-ROUTED = {"random_16k", "powerlaw_16k", "random_1m", "random_4m",
-          "powerlaw_1m"}
-#: Heavy-tail (power-law) entries also run the degree-split hybrid
-#: (models/hybrid.py): EHYB body on dense rows, routed tail on the rest.
-SPLIT = {"powerlaw_16k", "powerlaw_1m"}
 
 
 def _fmt(r):
-    """GFLOP/s cell with the timing noise-floor tag surfaced (ADVICE r2:
-    below-floor measurements are the least trustworthy rows in the table)."""
-    if not r:
-        return "FAIL"
-    return f"{r['gflops']:.2f}" + ("†" if r.get("noisy") else "")
+    return f"{r['gflops']:.2f}" if r else "FAIL"
 
 
 def main():
@@ -46,12 +34,9 @@ def main():
     rows = []
     for mat in matrices:
         row = {"matrix": mat}
-        models = (MODELS + (["ehyb_routed"] if mat in ROUTED else [])
-                  + (["ehyb_split"] if mat in SPLIT else []))
-        for model in models:
-            # baselines run 100-10000x slower than the EHYB engines; a short
-            # region prices them fine (their column is a magnitude, not a
-            # measurement — noise tagging still applies)
+        for model in MODELS:
+            # baselines run far slower than the EHYB engine; a short region
+            # prices them fine (their column is a magnitude)
             it = iters if model.startswith("ehyb") else min(iters, 12)
             r = run_child(model, mat, it, timeout=2400)
             row[model] = r
@@ -64,45 +49,34 @@ def main():
 
 
 def _write(rows, iters):
+    dev = next((r["ehyb"]["device"] for r in rows if r.get("ehyb")), {})
+    card = card_record()
     lines = [
-        "# Benchmark sweep (TPU v5e, 1 chip)",
+        f"# Benchmark sweep ({dev.get('kind', '?')}, "
+        f"{card['power_limit']} power limit, {dev.get('count', 1)} card)",
         "",
         f"Generated by scripts/sweep.py on {time.strftime('%Y-%m-%d %H:%M')}; "
         f"{iters} timed iterations, device-side loop, dispatch cost "
         "subtracted (protocol: spmv.cu:100-122 + utils/timing.py).",
         "",
-        "| matrix | nnz | EHYB GFLOP/s | HBM roofline % | routed | split | "
-        "CSR (XLA) | BCOO (vendor) | speedup vs BCOO | setup s |",
-        "|---|---|---|---|---|---|---|---|---|---|",
+        "| matrix | nnz | EHYB GFLOP/s | roofline % | CSR (XLA) | "
+        "BCOO (vendor) | speedup vs BCOO | setup s |",
+        "|---|---|---|---|---|---|---|---|",
     ]
     for row in rows:
         e, c, b = row.get("ehyb"), row.get("csr"), row.get("bcoo")
-        rt, sp = row.get("ehyb_routed"), row.get("ehyb_split")
         if not e:
-            lines.append(f"| {row['matrix']} | - | FAIL | | | | | | | |")
+            lines.append(f"| {row['matrix']} | - | FAIL | | | | | |")
             continue
-        best = max(x["gflops"] for x in (e, rt, sp) if x)
-        vs = f"{best/b['gflops']:.0f}x" if b else "-"
+        vs = f"{e['gflops']/b['gflops']:.0f}x" if b else "-"
         setup = sum(e.get("setup_seconds", {}).values())
         lines.append(
             f"| {row['matrix']} | {e['nnz']:,} | {_fmt(e)} | "
-            f"{100*e['roofline_frac']:.0f}% | {_fmt(rt) if rt else '-'} | "
-            f"{_fmt(sp) if sp else '-'} | {_fmt(c)} | {_fmt(b)} | {vs} | "
+            f"{100*e['roofline_frac']:.0f}% | {_fmt(c)} | {_fmt(b)} | {vs} | "
             f"{setup:.1f} |")
     lines += ["",
-              "† below the timing noise floor (utils/timing.py) — treat as "
-              "an upper bound on µs/iter, not a stable number.",
-              "",
               "setup s = artifact-build wall time for the EHYB run in this "
-              "sweep (cached when the fingerprinted artifact exists).",
-              "",
-              "dword (f32x2 double-word precision, `--dword` /"
-              " `EHYB_BENCH_DWORD=1`, the f64 contract of spmv.h:46): "
-              "measured r5 on hardware — fem3d_32 **6.63** GFLOP/s at rel "
-              "2.3e-14 (DIA phase, 72x the f32 rate's cost) and "
-              "permuted_poisson_512 **0.03** at rel 1.8e-15 (the ordered "
-              "Neumaier scan serializes the SELL body; precision mode is "
-              "accuracy-first — the f32 pipeline stays the speed path)."]
+              "sweep (cached when the fingerprinted artifact exists)."]
     out = os.path.join(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), "BENCH_SWEEP.md")
     with open(out, "w") as f:

@@ -12,12 +12,12 @@ import dataclasses
 import numpy as np
 import pytest
 
-from ehyb_spmv_gpu_tpu.config import EhybConfig
-from ehyb_spmv_gpu_tpu.core.cache import matrix_fingerprint
-from ehyb_spmv_gpu_tpu.core.coo import MatrixCOO, deterministic_x, oracle_spmv
-from ehyb_spmv_gpu_tpu.io import generate
-from ehyb_spmv_gpu_tpu.models.ehyb import EhybSpmv, EhybXlaSpmv
-from ehyb_spmv_gpu_tpu.utils.validate import rel_error
+from ehyb_spmv.config import EhybConfig
+from ehyb_spmv.core.cache import matrix_fingerprint
+from ehyb_spmv.core.coo import MatrixCOO, deterministic_x, oracle_spmv
+from ehyb_spmv.io import generate
+from ehyb_spmv.models.ehyb import EhybXlaSpmv
+from ehyb_spmv.utils.validate import rel_error
 
 
 def test_cache_roundtrip_same_result(poisson_small, tmp_path):
@@ -37,19 +37,19 @@ def test_cache_roundtrip_same_result(poisson_small, tmp_path):
     assert rel_error(y2, want) < 5e-6
 
 
-def test_cache_hit_after_rx_auto_switch(scrambled, tmp_path, monkeypatch):
+def test_cache_hit_after_rx_auto_switch(scrambled, tmp_path):
     """Regression (advisor r2): when the relax auto-switch fires, artifacts
     must be saved under the PRE-switch fingerprint — the one the next run's
     load computes — or the cache misses on every run."""
-    monkeypatch.setenv("EHYB_FORCE_PALLAS", "interpret")
-    cfg = EhybConfig(window_rows=1024, artifact_cache=True,
-                     cache_dir=str(tmp_path))
-    m1 = EhybSpmv(cfg).setup(scrambled)
+    cfg = EhybConfig(window_rows=1024, body_layout="sell_mw",
+                     artifact_cache=True, cache_dir=str(tmp_path))
+    m1 = EhybXlaSpmv(cfg).setup(scrambled)
     assert m1.config.body_layout == "sell_rx"     # the switch fired
     assert "convert" in m1.setup_seconds
 
-    m2 = EhybSpmv(EhybConfig(window_rows=1024, artifact_cache=True,
-                             cache_dir=str(tmp_path))).setup(scrambled)
+    m2 = EhybXlaSpmv(EhybConfig(window_rows=1024, body_layout="sell_mw",
+                                artifact_cache=True,
+                                cache_dir=str(tmp_path))).setup(scrambled)
     assert "cache_load" in m2.setup_seconds, "rx-switched artifact missed"
     # the loaded artifact is rx; the config must mirror that
     assert m2.config.body_layout == "sell_rx"

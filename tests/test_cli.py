@@ -8,8 +8,8 @@ import sys
 import numpy as np
 import pytest
 
-from ehyb_spmv_gpu_tpu.cli import main
-from ehyb_spmv_gpu_tpu.io import generate, write_mtx
+from ehyb_spmv.cli import main
+from ehyb_spmv.io import generate, write_mtx
 
 
 def run_cli(args, capsys):
@@ -63,7 +63,7 @@ def test_cli_list_corpus(capsys):
 def test_module_entry_subprocess():
     env = dict(os.environ, JAX_PLATFORMS="cpu")
     proc = subprocess.run(
-        [sys.executable, "-m", "ehyb_spmv_gpu_tpu", "-g", "diag4k", "-i", "2",
+        [sys.executable, "-m", "ehyb_spmv", "-g", "diag4k", "-i", "2",
          "--platform", "cpu", "--model", "ehyb_xla"],
         capture_output=True, text=True, timeout=300, env=env,
         cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))

@@ -3,14 +3,14 @@ bounds, padding accounting, exact reconstruction)."""
 import numpy as np
 import pytest
 
-from ehyb_spmv_gpu_tpu.config import EhybConfig
-from ehyb_spmv_gpu_tpu.core.convert import coo_to_ehyb, verify_conversion
-from ehyb_spmv_gpu_tpu.core.coo import deterministic_x, oracle_spmv
-from ehyb_spmv_gpu_tpu.core.ehyb import EhybMatrix
-from ehyb_spmv_gpu_tpu.core.planner import make_plan
-from ehyb_spmv_gpu_tpu.core.reorder import two_level_reorder
-from ehyb_spmv_gpu_tpu.io import generate
-from ehyb_spmv_gpu_tpu.partition import partition_rows
+from ehyb_spmv.config import EhybConfig
+from ehyb_spmv.core.convert import coo_to_ehyb, verify_conversion
+from ehyb_spmv.core.coo import deterministic_x, oracle_spmv
+from ehyb_spmv.core.ehyb import EhybMatrix
+from ehyb_spmv.core.planner import make_plan
+from ehyb_spmv.core.reorder import two_level_reorder
+from ehyb_spmv.io import generate
+from ehyb_spmv.partition import partition_rows
 
 
 def build(m, cfg=None, sort_rows=True):
@@ -59,7 +59,7 @@ def test_long_rows_extracted():
 def test_slice_widths_bound_row_counts(poisson_mid):
     e, m_r, r, plan = build(poisson_mid)
     # per-slice width >= in-window nnz of each member row
-    from ehyb_spmv_gpu_tpu.core.reorder import in_window_counts
+    from ehyb_spmv.core.reorder import in_window_counts
 
     counts = in_window_counts(m_r.row, m_r.col, r.boundaries, plan.window_rows,
                               m_r.dimension)

@@ -4,10 +4,10 @@ import io
 import numpy as np
 import pytest
 
-from ehyb_spmv_gpu_tpu.core.coo import (MatrixCOO, coalesce, deterministic_x,
+from ehyb_spmv.core.coo import (MatrixCOO, coalesce, deterministic_x,
                                         oracle_spmv)
-from ehyb_spmv_gpu_tpu.io import generate
-from ehyb_spmv_gpu_tpu.io.mtx import MtxError, read_header, read_mtx, write_mtx
+from ehyb_spmv.io import generate
+from ehyb_spmv.io.mtx import MtxError, read_header, read_mtx, write_mtx
 
 
 def test_deterministic_x_reproducible():
@@ -158,7 +158,7 @@ def test_mtx_pattern_native_no_overflow(tmp_path):
     """Regression: the native parser wrote val[n] for pattern files whose
     Python-side val buffer was length 1 — heap overflow (code review)."""
     import numpy as np
-    from ehyb_spmv_gpu_tpu.io import read_mtx
+    from ehyb_spmv.io import read_mtx
 
     rng = np.random.default_rng(0)
     n = 30000
@@ -175,7 +175,7 @@ def test_mtx_pattern_native_no_overflow(tmp_path):
 def test_mtx_float_indices_fallback(tmp_path):
     """Files with float-formatted indices parse via the NumPy fallback after
     the strict native scanner rejects them (code review)."""
-    from ehyb_spmv_gpu_tpu.io import read_mtx
+    from ehyb_spmv.io import read_mtx
 
     p = tmp_path / "fl.mtx"
     p.write_text("%%MatrixMarket matrix coordinate real general\n"

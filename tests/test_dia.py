@@ -1,22 +1,23 @@
 """DIA body tests: extraction invariants, reconstruction, apply correctness.
 
-The DIA body is a TPU-native extension (no reference analog): dense high-fill
+The DIA body is an extension with no reference analog: dense high-fill
 diagonals are peeled off before SELL packing and applied as statically-shifted
-slices of x (pure VPU FMA, no gather).  See core/ehyb.py and ops/xla_ops.py.
+slices of x (a streaming FMA, no gather).  See core/ehyb.py and ops/xla_ops.py.
 """
 import dataclasses
 
 import numpy as np
 import pytest
 
-import ehyb_spmv_gpu_tpu as ehyb
-from ehyb_spmv_gpu_tpu.config import EhybConfig, Features
-from ehyb_spmv_gpu_tpu.core.convert import (convert_core, extract_diagonals,
+import ehyb_spmv as ehyb
+from ehyb_spmv.config import EhybConfig, Features
+from ehyb_spmv.core.convert import (convert_core, extract_diagonals,
                                             verify_conversion)
-from ehyb_spmv_gpu_tpu.core.coo import deterministic_x, oracle_spmv
-from ehyb_spmv_gpu_tpu.io import generate
-from ehyb_spmv_gpu_tpu.utils.validate import rel_error
+from ehyb_spmv.core.coo import deterministic_x, oracle_spmv
+from ehyb_spmv.io import generate
+from ehyb_spmv.utils.validate import rel_error
 
+from tests.kernel_helpers import gpu_flagship, interpret_matvec
 from tests.test_convert import build
 
 
@@ -140,7 +141,7 @@ def test_dia_apply_mixed_body():
 
 
 def _concat(a, b):
-    from ehyb_spmv_gpu_tpu.core.coo import MatrixCOO, coalesce
+    from ehyb_spmv.core.coo import MatrixCOO, coalesce
     return coalesce(MatrixCOO(
         a.n_rows, a.n_cols,
         np.concatenate([a.row, b.row]), np.concatenate([a.col, b.col]),
@@ -148,35 +149,23 @@ def _concat(a, b):
 
 
 def test_dia_pallas_interpret_matches_oracle():
-    # The Pallas model path with DIA on (interpret mode on CPU); mixed body.
-    import os
-
+    # The flagship's GPU path with DIA on (kernel in interpret mode); mixed
+    # body.
     m = _concat(generate.stencil3d(10, 7),
                 generate.random_general(1000, 3, seed=2))
     x = deterministic_x(m.dimension)
-    want = oracle_spmv(m, x)
-    os.environ["EHYB_FORCE_PALLAS"] = "interpret"
-    try:
-        mod = ehyb.MODELS["ehyb"](EhybConfig()).setup(m)
-        assert rel_error(mod.matvec(x), want) < 1e-4
-    finally:
-        os.environ.pop("EHYB_FORCE_PALLAS", None)
+    mod = gpu_flagship(m)
+    assert mod.ehyb.stats["nnz_dia"] > 0
+    assert rel_error(interpret_matvec(mod, x), oracle_spmv(m, x)) < 1e-4
 
 
 def test_dia_empty_body_fast_path():
-    # Pure stencil: body nnz = 0 → the Pallas apply skips the kernel.
-    import os
-
+    # Pure stencil: body nnz = 0 → the GPU apply skips the body kernel.
     m = generate.stencil3d(10, 7)
     x = deterministic_x(m.dimension)
-    want = oracle_spmv(m, x)
-    os.environ["EHYB_FORCE_PALLAS"] = "interpret"
-    try:
-        mod = ehyb.MODELS["ehyb"](EhybConfig()).setup(m)
-        assert mod.ehyb.stats["nnz_ell"] == 0
-        assert rel_error(mod.matvec(x), want) < 1e-4
-    finally:
-        os.environ.pop("EHYB_FORCE_PALLAS", None)
+    mod = gpu_flagship(m)
+    assert mod.ehyb.stats["nnz_ell"] == 0
+    assert rel_error(interpret_matvec(mod, x), oracle_spmv(m, x)) < 1e-4
 
 
 def test_dia_serialization_roundtrip(tmp_path):
@@ -184,48 +173,10 @@ def test_dia_serialization_roundtrip(tmp_path):
     e, m_r, _, _ = build(m)
     p = str(tmp_path / "m.ehyb.npz")
     e.save_npz(p)
-    from ehyb_spmv_gpu_tpu.core.ehyb import EhybMatrix
+    from ehyb_spmv.core.ehyb import EhybMatrix
 
     e2 = EhybMatrix.load_npz(p)
     np.testing.assert_array_equal(e.dia_offsets, e2.dia_offsets)
     np.testing.assert_array_equal(e.dia_val, e2.dia_val)
     assert e2.stats.get("nnz_dia") == e.stats["nnz_dia"]
     verify_conversion(m_r, e2)
-
-
-def test_dia_pallas_streamed_x(monkeypatch):
-    """x-streamed DIA variant (block pairs; the >32MB regime) vs the
-    resident variant and the oracle, in interpret mode."""
-    import ehyb_spmv_gpu_tpu.ops.dia_pallas as dp
-    import numpy as np
-    import jax.numpy as jnp
-
-    rng = np.random.default_rng(0)
-    dim = 8192
-    offsets = [-1024, -128, -1, 0, 1, 128, 1024]
-    dia = rng.standard_normal((len(offsets), dim)).astype(np.float32)
-    x = rng.standard_normal(dim).astype(np.float32)
-    want = np.zeros(dim)
-    for k, d in enumerate(offsets):
-        i = np.arange(dim)
-        j = i + d
-        ok = (j >= 0) & (j < dim)
-        want[i[ok]] += dia[k, i[ok]].astype(np.float64) * x[j[ok]]
-    packed, _ = dp.pack_dia(dia, block_rows=4096)
-    monkeypatch.setattr(dp, "X_RESIDENT_DIA_BYTES", 1024)  # force streaming
-    apply_s = dp.make_dia_pallas_apply(offsets, dim, "float32",
-                                       block_rows=4096, interpret=True)
-    y = np.asarray(apply_s(jnp.asarray(packed), jnp.asarray(x)))[:dim]
-    np.testing.assert_allclose(y, want, rtol=2e-5, atol=1e-4)
-
-
-def test_dia_pallas_streamed_span_guard(monkeypatch):
-    """Offset span beyond block_rows must raise (the model falls back to
-    the XLA DIA)."""
-    import ehyb_spmv_gpu_tpu.ops.dia_pallas as dp
-    import pytest
-
-    monkeypatch.setattr(dp, "X_RESIDENT_DIA_BYTES", 1024)
-    with pytest.raises(ValueError):
-        dp.make_dia_pallas_apply([-4096, 0, 4096], 65536, "float32",
-                                 block_rows=2048, interpret=True)

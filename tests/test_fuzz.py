@@ -11,12 +11,14 @@ import dataclasses
 import numpy as np
 import pytest
 
-import ehyb_spmv_gpu_tpu as ehyb
-from ehyb_spmv_gpu_tpu.config import EhybConfig, Features
-from ehyb_spmv_gpu_tpu.core.convert import verify_conversion
-from ehyb_spmv_gpu_tpu.core.coo import MatrixCOO, coalesce, deterministic_x, \
+import ehyb_spmv as ehyb
+from ehyb_spmv.config import EhybConfig, Features
+from ehyb_spmv.core.convert import verify_conversion
+from ehyb_spmv.core.coo import MatrixCOO, coalesce, deterministic_x, \
     oracle_spmv
-from ehyb_spmv_gpu_tpu.utils.validate import rel_error
+from ehyb_spmv.utils.validate import rel_error
+
+from tests.kernel_helpers import gpu_flagship, interpret_matvec
 
 
 def random_matrix(rng, dim, style):
@@ -80,27 +82,22 @@ def test_fuzz_convert_and_apply(seed):
 
 @pytest.mark.parametrize("seed", [10, 11, 12])
 def test_fuzz_pallas_interpret(seed):
-    """Same fuzz through the Pallas model (interpret mode, f32)."""
-    import os
-
+    """Same fuzz through the flagship's GPU path (Triton kernel in interpret
+    mode, f32)."""
     rng = np.random.default_rng(seed)
     m = random_matrix(rng, int(rng.integers(300, 1200)),
                       ["uniform", "banded", "diag_plus_noise"][seed % 3])
-    os.environ["EHYB_FORCE_PALLAS"] = "interpret"
-    try:
-        model = ehyb.MODELS["ehyb"](EhybConfig()).setup(m)
-        x = deterministic_x(m.dimension)
-        err = rel_error(model.matvec(x), oracle_spmv(m, x))
-        assert err < 1e-4, err
-    finally:
-        os.environ.pop("EHYB_FORCE_PALLAS", None)
+    model = gpu_flagship(m)
+    x = deterministic_x(m.dimension)
+    err = rel_error(interpret_matvec(model, x), oracle_spmv(m, x))
+    assert err < 1e-4, err
 
 
 RX_CONFIGS = [
     {"body_layout": "sell_rx"},
     {"body_layout": "sell_rx", "row_split_threshold": 8},
     {"body_layout": "sell_rx", "min_window_group_nnz": 1},
-    {"body_layout": "sell_rx", "compensated_sum": True},
+    {"body_layout": "sell_rx", "windows_per_subtile": 4},
     {"body_layout": "sell_rx", "row_split_threshold": 4,
      "min_window_group_nnz": 1},
     {"body_layout": "sell_rx", "features": Features(dia=False)},
@@ -109,7 +106,7 @@ RX_CONFIGS = [
 
 @pytest.mark.parametrize("seed", range(6))
 def test_fuzz_rx_convert_and_apply(seed):
-    """Fuzz the relaxed layout (+ row splitting / compensation combos)
+    """Fuzz the relaxed layout (+ row splitting / quad-window combos)
     through conversion invariants, dense reconstruction, and oracle parity
     on the XLA path."""
     rng = np.random.default_rng(100 + seed)
@@ -131,22 +128,15 @@ def test_fuzz_rx_convert_and_apply(seed):
 
 
 @pytest.mark.parametrize("seed", [20, 21, 22, 23])
-def test_fuzz_rx_pallas_interpret(seed):
-    """Relaxed-layout fuzz through the streamed Pallas kernel (interpret)."""
-    import os
-
+def test_fuzz_sell_kernel_interpret(seed):
+    """Fuzz the flagship's GPU path (multi-window body + ER tail + long rows
+    through the Triton kernel in interpret mode) against the oracle."""
     rng = np.random.default_rng(seed)
     m = random_matrix(rng, int(rng.integers(300, 1200)),
                       ["uniform", "banded", "dense_row", "diag_plus_noise"]
                       [seed % 4])
-    cfg = dataclasses.replace(EhybConfig(body_layout="sell_rx"),
-                              **({"row_split_threshold": 8} if seed % 2
-                                 else {"compensated_sum": True}))
-    os.environ["EHYB_FORCE_PALLAS"] = "interpret"
-    try:
-        model = ehyb.MODELS["ehyb"](cfg).setup(m)
-        x = deterministic_x(m.dimension)
-        err = rel_error(model.matvec(x), oracle_spmv(m, x))
-        assert err < 1e-4, err
-    finally:
-        os.environ.pop("EHYB_FORCE_PALLAS", None)
+    cfg = EhybConfig(long_row_threshold=64) if seed % 2 else EhybConfig()
+    model = gpu_flagship(m, cfg)
+    x = deterministic_x(m.dimension)
+    err = rel_error(interpret_matvec(model, x), oracle_spmv(m, x))
+    assert err < 1e-4, err

@@ -29,8 +29,8 @@ def _load_mtx_scale():
 
 def test_ingest_roundtrip_and_cli(tmp_path, capsys):
     ms = _load_mtx_scale()
-    from ehyb_spmv_gpu_tpu.cli import main
-    from ehyb_spmv_gpu_tpu.io import mtx
+    from ehyb_spmv.cli import main
+    from ehyb_spmv.io import mtx
 
     m = ms.symmetrized_fem3d(8)           # dim 1536, nnz ~109k
     path = str(tmp_path / "fem3d_8_sym.mtx")

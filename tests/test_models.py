@@ -7,11 +7,11 @@ tests, at f64/f32-appropriate tolerances.
 import numpy as np
 import pytest
 
-import ehyb_spmv_gpu_tpu as ehyb
-from ehyb_spmv_gpu_tpu.config import EhybConfig
-from ehyb_spmv_gpu_tpu.core.coo import deterministic_x, oracle_spmv
-from ehyb_spmv_gpu_tpu.io import generate
-from ehyb_spmv_gpu_tpu.utils.validate import compare, rel_error
+import ehyb_spmv as ehyb
+from ehyb_spmv.config import EhybConfig
+from ehyb_spmv.core.coo import deterministic_x, oracle_spmv
+from ehyb_spmv.io import generate
+from ehyb_spmv.utils.validate import compare, rel_error
 
 MODELS = ["csr", "bcoo", "ehyb_xla", "ehyb", "hyb"]
 

@@ -1,19 +1,22 @@
-"""Pallas SELL-body kernel tests (interpreter mode on CPU) + chunk-sync
-packing invariants."""
-import os
+"""SELL layouts and the Pallas (Triton) slice kernel.
 
+Converter invariants of the chunk-synchronized, multi-window and relaxed
+layouts, and the flagship's GPU path run on the CPU with the kernel in
+interpret mode (the compiled kernel runs under ``tests/test_gpu.py``)."""
 import numpy as np
 import pytest
 
-import ehyb_spmv_gpu_tpu as ehyb
-from ehyb_spmv_gpu_tpu.config import EhybConfig, WINDOW_ALIGN
-from ehyb_spmv_gpu_tpu.core.convert import coo_to_ehyb
-from ehyb_spmv_gpu_tpu.core.coo import deterministic_x, oracle_spmv
-from ehyb_spmv_gpu_tpu.core.planner import make_plan
-from ehyb_spmv_gpu_tpu.core.reorder import two_level_reorder
-from ehyb_spmv_gpu_tpu.io import generate
-from ehyb_spmv_gpu_tpu.partition import partition_rows
-from ehyb_spmv_gpu_tpu.utils.validate import rel_error
+import ehyb_spmv as ehyb
+from ehyb_spmv.config import EhybConfig, WINDOW_ALIGN
+from ehyb_spmv.core.convert import coo_to_ehyb
+from ehyb_spmv.core.coo import deterministic_x, oracle_spmv
+from ehyb_spmv.core.planner import make_plan
+from ehyb_spmv.core.reorder import two_level_reorder
+from ehyb_spmv.io import generate
+from ehyb_spmv.partition import partition_rows
+from ehyb_spmv.utils.validate import rel_error
+
+from tests.kernel_helpers import gpu_flagship, interpret_matvec
 
 
 def build_cs(m, sort_rows=True):
@@ -34,14 +37,14 @@ def test_chunk_sync_invariant(poisson_mid):
 
 
 def test_chunk_sync_reconstruction(poisson_mid):
-    from ehyb_spmv_gpu_tpu.core.convert import verify_conversion
+    from ehyb_spmv.core.convert import verify_conversion
 
     e, m_r, _, _ = build_cs(poisson_mid)
     verify_conversion(m_r, e)
 
 
 def test_chunk_sync_reconstruction_powerlaw(powerlaw_small):
-    from ehyb_spmv_gpu_tpu.core.convert import verify_conversion
+    from ehyb_spmv.core.convert import verify_conversion
 
     e, m_r, _, _ = build_cs(powerlaw_small)
     verify_conversion(m_r, e)
@@ -60,63 +63,10 @@ def test_no_empty_slices(poisson_mid):
     assert np.all(np.diff(e.slice_offset) > 0)
 
 
-def test_tile_maps(poisson_mid):
-    from ehyb_spmv_gpu_tpu.ops.ehyb_pallas import TILE_STEPS, build_tile_maps
-
-    e, _, _, _ = build_cs(poisson_mid)
-    ts, tf, wb = build_tile_maps(e, TILE_STEPS)
-    widths = np.diff(e.slice_offset)
-    assert ts.shape[0] == widths.sum() // TILE_STEPS
-    # first flags: exactly one per slice
-    assert tf.sum() == e.n_slices
-    # tiles of one slice are contiguous and share the window block
-    for s in range(e.n_slices):
-        sel = ts == s
-        assert sel.any()
-        idx = np.flatnonzero(sel)
-        assert np.all(np.diff(idx) == 1)
-        assert np.unique(wb[sel]).size == 1
-
-
-@pytest.mark.parametrize("fixture", ["poisson_mid", "powerlaw_small",
-                                     "scrambled"])
-def test_pallas_interpret_vs_oracle(fixture, request):
-    m = request.getfixturevalue(fixture)
-    os.environ["EHYB_FORCE_PALLAS"] = "interpret"
-    try:
-        model = ehyb.EhybSpmv(EhybConfig()).setup(m)
-        assert model._use_pallas
-        x = deterministic_x(m.dimension)
-        y = model.matvec(x)
-        assert rel_error(y, oracle_spmv(m, x)) < 5e-6
-    finally:
-        del os.environ["EHYB_FORCE_PALLAS"]
-
-
-def test_pallas_interpret_long_rows():
-    m = generate.with_dense_rows(
-        generate.random_general(3000, 8, seed=21), 2, density=0.6, seed=22)
-    os.environ["EHYB_FORCE_PALLAS"] = "interpret"
-    try:
-        # sell_cs (partition windows): dense rows overflow to ER and trip the
-        # long-row extraction; under sell_mw their entries form large window
-        # groups and stay in the body, so the long path would not trigger.
-        cfg = EhybConfig(long_row_threshold=128, body_layout="sell_cs")
-        model = ehyb.EhybSpmv(cfg).setup(m)
-        assert model.ehyb.n_long >= 1
-        x = deterministic_x(m.dimension)
-        assert rel_error(model.matvec(x), oracle_spmv(m, x)) < 1e-5
-    finally:
-        del os.environ["EHYB_FORCE_PALLAS"]
-
-
-# --- multi-window layout ------------------------------------------------
-
-def build_mw(m, min_nnz=4):
-    from ehyb_spmv_gpu_tpu.core.convert import verify_conversion
-
+def build_mw(m, min_nnz=4, width_align=8):
     cfg = EhybConfig(window_rows=WINDOW_ALIGN, body_layout="sell_mw",
-                     dtype="float64", min_window_group_nnz=min_nnz)
+                     dtype="float64", min_window_group_nnz=min_nnz,
+                     width_align=width_align)
     plan = make_plan(m.dimension, cfg)
     labels = partition_rows(m, plan.n_parts, "blocks")
     r = two_level_reorder(m, labels, plan)
@@ -127,26 +77,11 @@ def build_mw(m, min_nnz=4):
 @pytest.mark.parametrize("fixture", ["poisson_mid", "powerlaw_small",
                                      "scrambled", "fem_small"])
 def test_mw_reconstruction(fixture, request):
-    from ehyb_spmv_gpu_tpu.core.convert import verify_conversion
+    from ehyb_spmv.core.convert import verify_conversion
 
     m = request.getfixturevalue(fixture)
     e, m_r = build_mw(m)
     verify_conversion(m_r, e)
-
-
-def test_mw_chunk_sync_invariant(fem_small):
-    e, _ = build_mw(fem_small)
-    hi = np.asarray(e.ell_col) >> 7
-    assert np.all(hi == hi[:, :1])
-
-
-def test_mw_tile_window_constant(fem_small):
-    from ehyb_spmv_gpu_tpu.ops.ehyb_pallas import TILE_STEPS
-
-    e, _ = build_mw(fem_small)
-    sw = e.step_win.reshape(-1, TILE_STEPS)
-    assert np.all(sw == sw[:, :1])
-    assert np.all(e.step_win % WINDOW_ALIGN == 0)
 
 
 def test_mw_reduces_er_vs_windowed(fem_small):
@@ -167,8 +102,6 @@ def test_mw_min_nnz_1_empties_er(poisson_mid):
     assert e.stats["nnz_er"] == 0
 
 
-# --- relaxed lo-slot layout (sell_rx) -------------------------------------
-
 def build_rx(m, min_nnz=2):
     cfg = EhybConfig(window_rows=WINDOW_ALIGN, body_layout="sell_rx",
                      dtype="float64", min_window_group_nnz=min_nnz)
@@ -182,7 +115,7 @@ def build_rx(m, min_nnz=2):
 @pytest.mark.parametrize("fixture", ["poisson_mid", "powerlaw_small",
                                      "scrambled", "fem_small"])
 def test_rx_reconstruction(fixture, request):
-    from ehyb_spmv_gpu_tpu.core.convert import verify_conversion
+    from ehyb_spmv.core.convert import verify_conversion
 
     m = request.getfixturevalue(fixture)
     e, m_r = build_rx(m)
@@ -208,11 +141,11 @@ def test_rx_slot_consistency(scrambled):
 
 def test_rx_native_packer_at_least_as_tight(scrambled, powerlaw_small,
                                             monkeypatch):
-    """The native greedy packer (routecolor.cpp::ehyb_pack_relaxed) must
+    """The native greedy packer (relaxpack.cpp::ehyb_pack_relaxed) must
     produce a VALID layout (verify_conversion reconstructs exactly) that is
     no looser than the round election it replaced — steps = streamed bytes,
     the body's whole cost model."""
-    from ehyb_spmv_gpu_tpu.core.convert import verify_conversion
+    from ehyb_spmv.core.convert import verify_conversion
 
     for m in (scrambled, powerlaw_small):
         monkeypatch.setenv("EHYB_NATIVE_PACK", "1")
@@ -236,206 +169,6 @@ def test_rx_never_more_steps_than_mw(scrambled):
     assert e_rx.stats["ell_steps"] <= e_mw.stats["ell_steps"]
 
 
-@pytest.mark.parametrize("fixture", ["poisson_mid", "scrambled",
-                                     "powerlaw_small"])
-def test_rx_pallas_interpret_vs_oracle(fixture, request):
-    m = request.getfixturevalue(fixture)
-    os.environ["EHYB_FORCE_PALLAS"] = "interpret"
-    try:
-        cfg = EhybConfig(body_layout="sell_rx")
-        model = ehyb.EhybSpmv(cfg).setup(m)
-        assert model.config.body_layout == "sell_rx"
-        if model.ehyb.stats["ell_steps"]:  # empty body (all DIA) has no maps
-            assert model.ehyb.step_win_b.size > 0
-        x = deterministic_x(m.dimension)
-        assert rel_error(model.matvec(x), oracle_spmv(m, x)) < 5e-6
-    finally:
-        del os.environ["EHYB_FORCE_PALLAS"]
-
-
-def test_stream_decline_no_padding(poisson_mid, monkeypatch):
-    """If the streamed body is declined (stream_body_fits False), ell arrays
-    must stay unpadded so the fallback applies trace cleanly (advisor
-    finding, r1).  The big variants removed the SMEM-budget decline, so the
-    predicate itself is forced False here."""
-    import ehyb_spmv_gpu_tpu.ops.ehyb_pallas as ep
-
-    # models/ehyb re-imports the predicate at each setup, so patching the
-    # module attribute reaches it
-    monkeypatch.setattr(ep, "stream_body_fits", lambda *a, **k: False)
-    monkeypatch.setenv("EHYB_FORCE_PALLAS", "interpret")
-    model = ehyb.EhybSpmv(EhybConfig()).setup(poisson_mid)
-    # padding must not have happened
-    assert model.dev.ell_col.shape[0] == model.ehyb.ell_col.shape[0]
-    x = deterministic_x(poisson_mid.dimension)
-    assert rel_error(model.matvec(x), oracle_spmv(poisson_mid, x)) < 5e-6
-
-
-@pytest.mark.parametrize("fixture", ["poisson_mid", "fem_small", "scrambled"])
-def test_mw_pallas_interpret_vs_oracle(fixture, request):
-    m = request.getfixturevalue(fixture)
-    os.environ["EHYB_FORCE_PALLAS"] = "interpret"
-    try:
-        model = ehyb.EhybSpmv(EhybConfig()).setup(m)
-        # relax_body='auto' may upgrade high-padding matrices to sell_rx
-        assert model.config.body_layout in ("sell_mw", "sell_rx")
-        x = deterministic_x(m.dimension)
-        y = model.matvec(x)
-        assert rel_error(y, oracle_spmv(m, x)) < 5e-6
-    finally:
-        del os.environ["EHYB_FORCE_PALLAS"]
-
-
-# --- compensated accumulation (config.compensated_sum) ---------------------
-
-def _cancellation_matrix():
-    """Row 0 sums 100 ones interleaved before ±1e8 blocks: every value and
-    every TRUE partial is f32-representable, but naive f32 summation absorbs
-    the ones into the 1e8-magnitude partials (ulp 8).  The reference computes
-    this exactly in f64 (spmv.h:46)."""
-    from ehyb_spmv_gpu_tpu.core.coo import MatrixCOO
-
-    dim = 2048
-    cols = np.arange(1124)
-    vals = np.empty(1124)
-    vals[:100] = 1.0
-    vals[100:612] = 1e8
-    vals[612:1124] = -1e8
-    # a light background so other rows/slices exist
-    bg_r = np.arange(1, dim)
-    bg_c = np.arange(1, dim)
-    row = np.concatenate([np.zeros(1124, np.int64), bg_r])
-    col = np.concatenate([cols, bg_c])
-    val = np.concatenate([vals, np.ones(dim - 1)])
-    return MatrixCOO(dim, dim, row, col, val)
-
-
-def test_compensated_sum_interpret():
-    m = _cancellation_matrix()
-    x = np.ones(m.dimension)
-    os.environ["EHYB_FORCE_PALLAS"] = "interpret"
-    try:
-        naive = ehyb.EhybSpmv(EhybConfig()).setup(m)
-        comp = ehyb.EhybSpmv(EhybConfig(compensated_sum=True)).setup(m)
-        y_n = naive.matvec(x)
-        y_c = comp.matvec(x)
-    finally:
-        del os.environ["EHYB_FORCE_PALLAS"]
-    # truth: row 0 = 100.0 exactly
-    assert abs(y_c[0] - 100.0) <= 1e-8 * 100.0, y_c[0]
-    # teeth: the uncompensated f32 path must actually lose precision here
-    # (if this ever starts passing, the stress pattern needs rework)
-    assert abs(y_n[0] - 100.0) > 1e-4, y_n[0]
-    # background rows unaffected
-    np.testing.assert_allclose(y_c[1:], 1.0, rtol=1e-6)
-
-
-def test_rx_switch_respects_stream_feasibility(scrambled, monkeypatch):
-    """On the Pallas flagship the relaxed auto-switch must NOT fire when the
-    streamed kernel can't run (the XLA rx fallback's gathers crash the TPU
-    fusion emitter)."""
-    import ehyb_spmv_gpu_tpu.ops.ehyb_pallas as ep
-
-    monkeypatch.setenv("EHYB_FORCE_PALLAS", "interpret")
-    monkeypatch.setattr(ep, "stream_body_fits",
-                        lambda *a, **k: False)  # stream infeasible
-    model = ehyb.EhybSpmv(EhybConfig()).setup(scrambled)
-    assert model.config.body_layout == "sell_mw"  # switch suppressed
-    x = deterministic_x(scrambled.dimension)
-    assert rel_error(model.matvec(x), oracle_spmv(scrambled, x)) < 5e-6
-
-
-# --- HBM-streamed body (software-managed x-window cache) -------------------
-
-def _force_nonresident(monkeypatch):
-    import ehyb_spmv_gpu_tpu.ops.ehyb_pallas as ep
-
-    monkeypatch.setattr(ep, "X_RESIDENT_BYTES", 1024)  # any real x overflows
-    monkeypatch.setenv("EHYB_FORCE_PALLAS", "interpret")
-    return ep
-
-
-def test_hbm_cache_plan_invariants(scrambled):
-    """Replay the load schedule: every sub-tile's slots must hold the right
-    window at compute time, and a load issued at t-1 must never overwrite a
-    window still read by step t-1's compute (the DMA overlaps it)."""
-    from ehyb_spmv_gpu_tpu.ops.ehyb_pallas import (
-        NSLOT, STREAM_SUBTILES, _SLOT_BITS, build_hbm_cache_plan,
-        build_stream_maps)
-
-    e, _ = build_rx(scrambled)
-    sub_wins, _, reset, _, n_tiles = build_stream_maps(e)
-    sub_win, sub_win_b = sub_wins[0], sub_wins[1]
-    packed_words, off, cnt, src, dst, kmax0, kmax, n_loads = \
-        build_hbm_cache_plan(sub_wins, reset, n_tiles)
-    packed = packed_words[0]
-    S = STREAM_SUBTILES
-    mask = (1 << _SLOT_BITS) - 1
-    slot_win = {}
-    prev_used = set()
-    li = 0
-    for t in range(n_tiles):
-        for _ in range(int(cnt[t])):
-            w, s = int(src[li]), int(dst[li])
-            li += 1
-            assert 0 <= s < NSLOT
-            if t > 0 and s in slot_win:
-                # overwrites ride under step t-1's compute: its window must
-                # not be in step t-1's working set
-                assert slot_win[s] not in prev_used, (t, s)
-            slot_win[s] = w
-        used = set()
-        for i in range(S):
-            v = int(packed[t * S + i])
-            sa, sb = v & mask, (v >> _SLOT_BITS) & mask
-            assert slot_win[sa] == int(sub_win[t * S + i])
-            assert slot_win[sb] == int(sub_win_b[t * S + i])
-            used.add(slot_win[sa])
-            used.add(slot_win[sb])
-        prev_used = used
-    assert li == n_loads
-    assert kmax0 == int(cnt[0])
-    assert kmax == (int(cnt[1:].max()) if n_tiles > 1 else 0)
-
-
-@pytest.mark.parametrize("fixture", ["poisson_mid", "scrambled",
-                                     "powerlaw_small"])
-def test_hbm_stream_interpret_vs_oracle(fixture, request, monkeypatch):
-    m = request.getfixturevalue(fixture)
-    _force_nonresident(monkeypatch)
-    model = ehyb.EhybSpmv(EhybConfig(artifact_cache=False)).setup(m)
-    if model.ehyb.stats["nnz_ell"]:
-        assert model._pallas_apply.__name__ == "apply_stream_hbm"
-    x = deterministic_x(m.dimension)
-    assert rel_error(model.matvec(x), oracle_spmv(m, x)) < 5e-6
-
-
-def test_hbm_stream_rx_layout(scrambled, monkeypatch):
-    """The relaxed layout must stay available when x is not VMEM-resident
-    (VERDICT r2 missing #1: residency no longer gates rx)."""
-    _force_nonresident(monkeypatch)
-    model = ehyb.EhybSpmv(
-        EhybConfig(body_layout="sell_rx", artifact_cache=False)).setup(
-            scrambled)
-    assert model.config.body_layout == "sell_rx"
-    assert model._pallas_apply.__name__ == "apply_stream_hbm"
-    x = deterministic_x(scrambled.dimension)
-    assert rel_error(model.matvec(x), oracle_spmv(scrambled, x)) < 5e-6
-
-
-def test_hbm_stream_kahan(monkeypatch):
-    """Compensated accumulation through the HBM window-cache body."""
-    m = _cancellation_matrix()
-    _force_nonresident(monkeypatch)
-    comp = ehyb.EhybSpmv(EhybConfig(compensated_sum=True,
-                                    artifact_cache=False)).setup(m)
-    y_c = comp.matvec(np.ones(m.dimension))
-    assert abs(y_c[0] - 100.0) <= 1e-8 * 100.0, y_c[0]
-    np.testing.assert_allclose(y_c[1:], 1.0, rtol=1e-6)
-
-
-# --- quad-window relaxed layout (windows_per_subtile = 4) ------------------
-
 def build_rx4(m, min_nnz=2):
     cfg = EhybConfig(window_rows=WINDOW_ALIGN, body_layout="sell_rx",
                      dtype="float64", min_window_group_nnz=min_nnz,
@@ -450,7 +183,7 @@ def build_rx4(m, min_nnz=2):
 @pytest.mark.parametrize("fixture", ["poisson_mid", "powerlaw_small",
                                      "scrambled", "fem_small"])
 def test_rx4_reconstruction(fixture, request):
-    from ehyb_spmv_gpu_tpu.core.convert import verify_conversion
+    from ehyb_spmv.core.convert import verify_conversion
 
     m = request.getfixturevalue(fixture)
     e, m_r = build_rx4(m)
@@ -468,55 +201,6 @@ def test_rx4_fewer_steps_on_scattered(scrambled):
     assert e4.stats["ell_steps"] < e2.stats["ell_steps"]
 
 
-@pytest.mark.parametrize("fixture", ["poisson_mid", "scrambled",
-                                     "powerlaw_small"])
-def test_rx4_pallas_interpret_vs_oracle(fixture, request, monkeypatch):
-    m = request.getfixturevalue(fixture)
-    monkeypatch.setenv("EHYB_FORCE_PALLAS", "interpret")
-    cfg = EhybConfig(body_layout="sell_rx", windows_per_subtile=4,
-                     relax_body="never", artifact_cache=False)
-    model = ehyb.EhybSpmv(cfg).setup(m)
-    assert model.config.windows_per_subtile == 4
-    x = deterministic_x(m.dimension)
-    assert rel_error(model.matvec(x), oracle_spmv(m, x)) < 5e-6
-
-
-def test_rx4_hbm_stream_interpret(scrambled, monkeypatch):
-    """Quad windows through the HBM window-cache body (2 packed slot words)."""
-    _force_nonresident(monkeypatch)
-    cfg = EhybConfig(body_layout="sell_rx", windows_per_subtile=4,
-                     relax_body="never", artifact_cache=False)
-    model = ehyb.EhybSpmv(cfg).setup(scrambled)
-    assert model._pallas_apply.__name__ == "apply_stream_hbm"
-    x = deterministic_x(scrambled.dimension)
-    assert rel_error(model.matvec(x), oracle_spmv(scrambled, x)) < 5e-6
-
-
-def test_rx4_kahan_interpret(monkeypatch):
-    m = _cancellation_matrix()
-    monkeypatch.setenv("EHYB_FORCE_PALLAS", "interpret")
-    cfg = EhybConfig(body_layout="sell_rx", windows_per_subtile=4,
-                     relax_body="never", compensated_sum=True,
-                     artifact_cache=False)
-    model = ehyb.EhybSpmv(cfg).setup(m)
-    y_c = model.matvec(np.ones(m.dimension))
-    assert abs(y_c[0] - 100.0) <= 1e-8 * 100.0, y_c[0]
-
-
-def test_rx4_auto_upgrade(monkeypatch):
-    """relax_body='auto' should reach quads on a random matrix that spreads
-    over many windows (the small `scrambled` fixture spans only ~3 windows,
-    where the arbiter correctly declines the upgrade)."""
-    m = generate.random_general(8192, 24, seed=3)
-    monkeypatch.setenv("EHYB_FORCE_PALLAS", "interpret")
-    model = ehyb.EhybSpmv(EhybConfig(artifact_cache=False)).setup(m)
-    assert model.config.body_layout == "sell_rx"
-    assert model.config.windows_per_subtile == 4
-    assert model.ehyb.step_win_c.size > 0
-    x = deterministic_x(m.dimension)
-    assert rel_error(model.matvec(x), oracle_spmv(m, x)) < 5e-6
-
-
 def test_rx4_xla_model_vs_oracle(scrambled):
     """Pure-XLA apply decodes the 2-bit sel (CPU path)."""
     cfg = EhybConfig(body_layout="sell_rx", windows_per_subtile=4,
@@ -526,106 +210,67 @@ def test_rx4_xla_model_vs_oracle(scrambled):
     assert rel_error(model.matvec(x), oracle_spmv(scrambled, x)) < 5e-6
 
 
-# --- "big" streamed variants (VMEM meta blocks; no SMEM ceiling) -----------
-
-def _tiny_smem(monkeypatch):
-    import ehyb_spmv_gpu_tpu.ops.ehyb_pallas as ep
-
-    monkeypatch.setattr(ep, "_SMEM_PREFETCH_BUDGET", 8)
-    monkeypatch.setenv("EHYB_FORCE_PALLAS", "interpret")
-    return ep
-
-
-@pytest.mark.parametrize("wps", [2, 4])
-def test_resident_big_interpret(scrambled, monkeypatch, wps):
-    """SMEM budget blown but x VMEM-resident: the resident-big kernel (maps
-    in VMEM meta blocks) must serve the stream."""
-    _tiny_smem(monkeypatch)
-    cfg = EhybConfig(body_layout="sell_rx", windows_per_subtile=wps,
-                     relax_body="never", artifact_cache=False)
-    model = ehyb.EhybSpmv(cfg).setup(scrambled)
-    assert model._pallas_apply.__name__ == "apply_stream_big"
-    x = deterministic_x(scrambled.dimension)
-    assert rel_error(model.matvec(x), oracle_spmv(scrambled, x)) < 5e-6
+def test_mw_group_width_is_busiest_row(fem_small):
+    """Multi-window groups are as wide as their busiest row: no step of a
+    slice is entirely padding unless the slice itself is empty."""
+    e, _ = build_mw(fem_small, width_align=1)
+    val = np.asarray(e.ell_val)
+    widths = np.diff(e.slice_offset)
+    for s in np.flatnonzero(widths > 1)[:50]:
+        rows = val[e.slice_offset[s]:e.slice_offset[s + 1]]
+        assert np.all(np.any(rows != 0, axis=1))
 
 
-def test_resident_big_mw_interpret(scrambled, monkeypatch):
-    """Chunk-sync layout through the resident-big kernel (nwin=1);
-    scrambled keeps a real SELL body (poisson converts 100% to DIA)."""
-    _tiny_smem(monkeypatch)
-    model = ehyb.EhybSpmv(EhybConfig(relax_body="never",
-                                     artifact_cache=False)).setup(scrambled)
-    assert model._pallas_apply.__name__ == "apply_stream_big"
-    x = deterministic_x(scrambled.dimension)
-    assert rel_error(model.matvec(x), oracle_spmv(scrambled, x)) < 5e-6
+def test_mw_window_local_columns(fem_small):
+    """Every body column is window-local: int16 holds it, and
+    step_win + col is the entry's reordered column."""
+    e, _ = build_mw(fem_small)
+    col = np.asarray(e.ell_col)
+    assert col.min() >= 0 and col.max() < WINDOW_ALIGN
+    assert np.all(e.step_win % 128 == 0)
 
 
-@pytest.mark.parametrize("wps", [2, 4])
-def test_hbm_big_interpret(scrambled, monkeypatch, wps):
-    """SMEM budget blown AND x non-resident: the hbm-big kernel (window
-    cache + VMEM meta) must serve the stream."""
-    ep = _tiny_smem(monkeypatch)
-    monkeypatch.setattr(ep, "X_RESIDENT_BYTES", 1024)
-    cfg = EhybConfig(body_layout="sell_rx", windows_per_subtile=wps,
-                     relax_body="never", artifact_cache=False)
-    model = ehyb.EhybSpmv(cfg).setup(scrambled)
-    assert model._pallas_apply.__name__ == "apply_stream_hbm_big"
-    x = deterministic_x(scrambled.dimension)
-    assert rel_error(model.matvec(x), oracle_spmv(scrambled, x)) < 5e-6
+@pytest.mark.parametrize("fixture", ["poisson_mid", "powerlaw_small",
+                                     "scrambled"])
+def test_pallas_interpret_vs_oracle(fixture, request):
+    m = request.getfixturevalue(fixture)
+    model = gpu_flagship(m)
+    x = deterministic_x(m.dimension)
+    assert rel_error(interpret_matvec(model, x), oracle_spmv(m, x)) < 5e-6
 
 
-def test_hbm_big_kahan(monkeypatch):
-    m = _cancellation_matrix()
-    ep = _tiny_smem(monkeypatch)
-    monkeypatch.setattr(ep, "X_RESIDENT_BYTES", 1024)
-    comp = ehyb.EhybSpmv(EhybConfig(compensated_sum=True,
-                                    artifact_cache=False)).setup(m)
-    y_c = comp.matvec(np.ones(m.dimension))
-    assert abs(y_c[0] - 100.0) <= 1e-8 * 100.0, y_c[0]
+def test_pallas_interpret_long_rows():
+    m = generate.with_dense_rows(
+        generate.random_general(3000, 8, seed=21), 2, density=0.6, seed=22)
+    # sell_cs (partition windows): dense rows overflow to ER and trip the
+    # long-row extraction; under sell_mw their entries form large window
+    # groups and stay in the body, so the long path would not trigger.
+    model = gpu_flagship(m, EhybConfig(long_row_threshold=128,
+                                       body_layout="sell_cs"))
+    assert model.ehyb.n_long >= 1
+    x = deterministic_x(m.dimension)
+    assert rel_error(interpret_matvec(model, x), oracle_spmv(m, x)) < 1e-5
 
 
-def test_hbm_cache_plan_quad_invariants(scrambled):
-    """Quad layout through the cache plan: second packed word carries
-    slots c/d; replay validates every sub-tile's 4 windows."""
-    from ehyb_spmv_gpu_tpu.ops.ehyb_pallas import (
-        STREAM_SUBTILES, _SLOT_BITS, build_hbm_cache_plan, build_stream_maps)
-
-    e, _ = build_rx4(scrambled)
-    sub_wins, _, reset, _, n_tiles = build_stream_maps(e)
-    assert len(sub_wins) == 4
-    packed, off, cnt, src, dst, kmax0, kmax, n_loads = build_hbm_cache_plan(
-        sub_wins, reset, n_tiles)
-    assert len(packed) == 2
-    S = STREAM_SUBTILES
-    mask = (1 << _SLOT_BITS) - 1
-    slot_win = {}
-    li = 0
-    for t in range(n_tiles):
-        for _ in range(int(cnt[t])):
-            slot_win[int(dst[li])] = int(src[li])
-            li += 1
-        for i in range(S):
-            v0 = int(packed[0][t * S + i])
-            v1 = int(packed[1][t * S + i])
-            slots = [v0 & mask, (v0 >> _SLOT_BITS) & mask,
-                     v1 & mask, (v1 >> _SLOT_BITS) & mask]
-            for w, s in zip(sub_wins, slots):
-                assert slot_win[s] == int(w[t * S + i])
-    assert li == n_loads
+@pytest.mark.parametrize("fixture", ["poisson_mid", "fem_small", "scrambled"])
+def test_mw_pallas_interpret_vs_oracle(fixture, request):
+    m = request.getfixturevalue(fixture)
+    model = gpu_flagship(m)
+    assert model.config.body_layout == "sell_mw"
+    assert model.config.index_dtype == "int16"
+    x = deterministic_x(m.dimension)
+    assert rel_error(interpret_matvec(model, x), oracle_spmv(m, x)) < 5e-6
 
 
-def test_hbm_geometry_selection_and_fallback(scrambled, monkeypatch):
-    """The HBM window-cache body prefers the big geometry (S=64, 512 slots —
-    measured 30.9 vs 20.1 GFLOP/s on permuted_poisson_4096) and falls back
-    to the resident geometry when the big plan cannot schedule."""
-    import ehyb_spmv_gpu_tpu.ops.ehyb_pallas as ep
-
-    e, _ = build_rx(scrambled)
-    g = ep._plan_hbm_stream(e)
-    assert g["S"] == ep.HBM_STREAM_SUBTILES
-    assert g["nslot"] == ep.HBM_NSLOT
-    # nnz conservation of the chosen plan's maps: every sub-tile is covered
-    assert g["n_tiles"] * g["S"] >= e.step_win.shape[0] // 8
-    monkeypatch.setattr(ep, "HBM_NSLOT", 8)  # big candidate cannot cover
-    g2 = ep._plan_hbm_stream(e)
-    assert (g2["S"], g2["nslot"]) == (ep.STREAM_SUBTILES, ep.NSLOT)
+def test_rx4_auto_upgrade():
+    """relax_body='auto' should reach quads on a random matrix that spreads
+    over many windows (the small `scrambled` fixture spans only ~3 windows,
+    where the arbiter correctly declines the upgrade)."""
+    m = generate.random_general(8192, 24, seed=3)
+    model = ehyb.EhybXlaSpmv(EhybConfig(body_layout="sell_mw",
+                                        window_rows=WINDOW_ALIGN)).setup(m)
+    assert model.config.body_layout == "sell_rx"
+    assert model.config.windows_per_subtile == 4
+    assert model.ehyb.step_win_c.size > 0
+    x = deterministic_x(m.dimension)
+    assert rel_error(model.matvec(x), oracle_spmv(m, x)) < 5e-6

@@ -3,11 +3,11 @@ import jax
 import numpy as np
 import pytest
 
-from ehyb_spmv_gpu_tpu.config import EhybConfig
-from ehyb_spmv_gpu_tpu.core.coo import deterministic_x, oracle_spmv
-from ehyb_spmv_gpu_tpu.io import generate
-from ehyb_spmv_gpu_tpu.parallel.spmv import ShardedEhybSpmv, AXIS
-from ehyb_spmv_gpu_tpu.utils.validate import rel_error
+from ehyb_spmv.config import EhybConfig
+from ehyb_spmv.core.coo import deterministic_x, oracle_spmv
+from ehyb_spmv.io import generate
+from ehyb_spmv.parallel.spmv import ShardedEhybSpmv, AXIS
+from ehyb_spmv.utils.validate import rel_error
 
 
 def make_mesh(n):
@@ -72,12 +72,12 @@ def test_sharded_sell_mw_layout(scrambled_mesh_4=None):
     off-halo columns to the globally-gathered ER tail."""
     import numpy as np
     import jax
-    import ehyb_spmv_gpu_tpu as ehyb
-    from ehyb_spmv_gpu_tpu.config import EhybConfig
-    from ehyb_spmv_gpu_tpu.core.coo import deterministic_x, oracle_spmv
-    from ehyb_spmv_gpu_tpu.io import generate
-    from ehyb_spmv_gpu_tpu.parallel.spmv import AXIS, ShardedEhybSpmv
-    from ehyb_spmv_gpu_tpu.utils.validate import rel_error
+    import ehyb_spmv as ehyb
+    from ehyb_spmv.config import EhybConfig
+    from ehyb_spmv.core.coo import deterministic_x, oracle_spmv
+    from ehyb_spmv.io import generate
+    from ehyb_spmv.parallel.spmv import AXIS, ShardedEhybSpmv
+    from ehyb_spmv.utils.validate import rel_error
 
     m = generate.permuted(generate.poisson2d(48), seed=11)
     mesh = jax.sharding.Mesh(np.array(jax.devices()[:4]), (AXIS,))
@@ -139,31 +139,6 @@ def test_exchange_collective_does_not_scale_with_dim():
     assert s64 < r64, sizes
 
 
-def test_sharded_pallas_body_interpret(poisson_mid, monkeypatch):
-    """VERDICT r1 #3: the fused Pallas streamed body runs inside the SPMD
-    shard (interpret mode on the CPU mesh) and matches the oracle."""
-    monkeypatch.setenv("EHYB_FORCE_PALLAS", "interpret")
-    cfg = EhybConfig(window_rows=1024)
-    # shards must span >= one full 1024-row window: dim 4096 over 2 devices
-    model = ShardedEhybSpmv(cfg, mesh=make_mesh(2)).setup(poisson_mid)
-    assert model._body_mode == "interpret"
-    assert model.sharded.stream is not None
-    # the overlap split actually has both parts on a banded matrix
-    st = model.sharded.stream
-    assert st["maskA"].sum() > 0 and st["maskB"].sum() > 0
-    x = deterministic_x(poisson_mid.dimension)
-    assert rel_error(model.matvec(x), oracle_spmv(poisson_mid, x)) < 5e-6
-
-
-def test_sharded_pallas_body_scrambled(scrambled, monkeypatch):
-    monkeypatch.setenv("EHYB_FORCE_PALLAS", "interpret")
-    cfg = EhybConfig(window_rows=1024)
-    model = ShardedEhybSpmv(cfg, mesh=make_mesh(2)).setup(scrambled)
-    assert model._body_mode == "interpret"
-    x = deterministic_x(scrambled.dimension)
-    assert rel_error(model.matvec(x), oracle_spmv(scrambled, x)) < 5e-6
-
-
 def test_multiprocess_two_hosts():
     """SURVEY §4 / VERDICT r1 #5: two OS processes under jax.distributed
     drive the full distributed pipeline and validate against the oracle.
@@ -182,27 +157,6 @@ def test_multiprocess_two_hosts():
         capture_output=True, text=True, timeout=420, env=env)
     assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-2000:]
     assert "MULTIHOST OK" in r.stdout, r.stdout[-2000:]
-
-
-def test_sharded_pallas_body_kahan(poisson_mid, monkeypatch):
-    monkeypatch.setenv("EHYB_FORCE_PALLAS", "interpret")
-    cfg = EhybConfig(window_rows=1024, compensated_sum=True)
-    model = ShardedEhybSpmv(cfg, mesh=make_mesh(2)).setup(poisson_mid)
-    assert model._body_mode == "interpret"
-    x = deterministic_x(poisson_mid.dimension)
-    assert rel_error(model.matvec(x), oracle_spmv(poisson_mid, x)) < 5e-6
-
-
-def test_sharded_rx_auto_switch(scrambled, monkeypatch):
-    """The sharded path mirrors the flagship's relaxed auto-switch (must be
-    SPMD-uniform) and runs the rx streamed kernel in-shard."""
-    monkeypatch.setenv("EHYB_FORCE_PALLAS", "interpret")
-    model = ShardedEhybSpmv(EhybConfig(window_rows=1024),
-                            mesh=make_mesh(2)).setup(scrambled)
-    assert model.config.body_layout == "sell_rx"
-    assert model.sharded.stream["nwin"] > 1  # dual or quad windows in-shard
-    x = deterministic_x(scrambled.dimension)
-    assert rel_error(model.matvec(x), oracle_spmv(scrambled, x)) < 5e-6
 
 
 def test_sharded_rx_xla_fallback(scrambled):
@@ -247,11 +201,11 @@ os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=16"
 import jax
 jax.config.update("jax_platforms", "cpu")
 import numpy as np
-from ehyb_spmv_gpu_tpu.config import EhybConfig
-from ehyb_spmv_gpu_tpu.core.coo import deterministic_x, oracle_spmv
-from ehyb_spmv_gpu_tpu.io import generate
-from ehyb_spmv_gpu_tpu.parallel.spmv import ShardedEhybSpmv, AXIS
-from ehyb_spmv_gpu_tpu.utils.validate import rel_error
+from ehyb_spmv.config import EhybConfig
+from ehyb_spmv.core.coo import deterministic_x, oracle_spmv
+from ehyb_spmv.io import generate
+from ehyb_spmv.parallel.spmv import ShardedEhybSpmv, AXIS
+from ehyb_spmv.utils.validate import rel_error
 m = generate.permuted(generate.poisson2d(128), seed=5)  # 16384 rows
 mesh = jax.sharding.Mesh(np.array(jax.devices()), (AXIS,))
 model = ShardedEhybSpmv(EhybConfig(window_rows=1024), mesh=mesh).setup(m)
@@ -270,39 +224,9 @@ print("D16 OK", err)
     assert "D16 OK" in r.stdout
 
 
-def test_sharded_quad_windows(monkeypatch):
-    """Quad (4-window) sub-tiles through the sharded streamed kernels: a
-    random matrix that spreads over many windows upgrades per shard
-    (SPMD-uniform) and validates against the oracle."""
-    m = generate.random_general(8192, 24, seed=3)
-    monkeypatch.setenv("EHYB_FORCE_PALLAS", "interpret")
-    model = ShardedEhybSpmv(EhybConfig(window_rows=1024),
-                            mesh=make_mesh(4)).setup(m)
-    assert model.config.windows_per_subtile == 4
-    assert model.sharded.stream["nwin"] == 4
-    x = deterministic_x(m.dimension)
-    assert rel_error(model.matvec(x), oracle_spmv(m, x)) < 5e-6
-
-
-def test_check_vma_enabled_gating(monkeypatch):
-    """The vma escape hatch is scoped: compiled paths verify collectives
-    (check_vma=True), the pallas interpreter keeps the hatch, and
-    EHYB_CHECK_VMA=0 force-disables (hardware insurance knob)."""
-    from ehyb_spmv_gpu_tpu.parallel.spmv import check_vma_enabled
-    monkeypatch.delenv("EHYB_CHECK_VMA", raising=False)
-    assert check_vma_enabled(interpret=False) is True
-    assert check_vma_enabled(interpret=True) is False
-    monkeypatch.setenv("EHYB_CHECK_VMA", "0")
-    assert check_vma_enabled(interpret=False) is False
-
-
 def test_sharded_xla_body_runs_under_check_vma(poisson_mid):
-    """The XLA-body sharded apply (pallas_meta=None → check_vma=True) must
-    trace and validate with vma checking on: every collective in the halo
-    exchange names AXIS (VERDICT r2 weak #7 — this is the compiled-path
-    verification the escape hatch used to skip)."""
-    import os
-    assert os.environ.get("EHYB_CHECK_VMA", "1") != "0"
+    """The XLA-body sharded apply runs with vma checking on: every
+    collective in the halo exchange names AXIS (VERDICT r2 weak #7)."""
     m = poisson_mid
     model = ShardedEhybSpmv(EhybConfig(window_rows=1024),
                             mesh=make_mesh(8)).setup(m)
@@ -310,46 +234,68 @@ def test_sharded_xla_body_runs_under_check_vma(poisson_mid):
     assert rel_error(model.matvec(x), oracle_spmv(m, x)) < 5e-6
 
 
-def test_sharded_degree_split_matches_oracle():
-    """VERDICT r3 next #9: the degree-split hybrid composed over the mesh —
-    sharded EHYB body on dense rows + sharded routed tail on the remainder,
-    one device add in the shared permuted space."""
-    from ehyb_spmv_gpu_tpu.parallel.hybrid import ShardedDegreeSplitSpmv
+def _interpret_kernel(monkeypatch):
+    """Route the sharded body's Triton kernel through the interpreter."""
+    from functools import partial
 
-    m = generate.random_general(6144, 24, seed=4, power_law=0.7)
-    model = ShardedDegreeSplitSpmv(
-        EhybConfig(window_rows=1024, artifact_cache=False),
-        mesh=make_mesh(4)).setup(m, threshold=32)
-    # both sub-engines actually carry work
-    assert model.e.m.nnz > 0 and model.r.m.nnz > 0
-    assert model.e.m.nnz + model.r.m.nnz == m.nnz
+    from ehyb_spmv.ops import sell_triton
+
+    for name in ("ehyb_body_triton", "ehyb_er_triton"):
+        monkeypatch.setattr(sell_triton, name,
+                            partial(getattr(sell_triton, name),
+                                    interpret=True))
+
+
+@pytest.mark.parametrize("n_dev", [1, 2, 4])
+def test_sharded_triton_body_interpret(n_dev, scrambled, monkeypatch):
+    """The GPU body and ER kernel inside the SPMD shard (interpret mode on
+    the CPU mesh) agree with the oracle and with the XLA shard body."""
+    from ehyb_spmv.parallel.spmv import make_sharded_apply
+
+    _interpret_kernel(monkeypatch)
+    model = ShardedEhybSpmv(EhybConfig(window_rows=1024),
+                            mesh=make_mesh(n_dev)).setup(scrambled)
+    assert model._kernel == "xla"  # the CPU picks XLA
+    fn, arrays = make_sharded_apply(model.sharded, model.mesh, "float32",
+                                    kernel="triton")
+    x = deterministic_x(scrambled.dimension)
+    x_dev = model.prepare_x(x)
+    y_k = model.recover_y(fn(arrays, x_dev))
+    assert rel_error(y_k, oracle_spmv(scrambled, x)) < 5e-6
+    assert rel_error(y_k, model.matvec(x)) < 1e-6
+
+
+def test_sharded_kernel_choice_follows_backend(poisson_small, monkeypatch):
+    """The sharded model picks its body kernel as the flagship does: the
+    compiled Triton kernel on the GPU, XLA elsewhere."""
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    model = ShardedEhybSpmv(EhybConfig(window_rows=1024),
+                            mesh=make_mesh(2)).setup(poisson_small)
+    assert model._kernel == "triton"
+    assert model.sharded.stats["layout"] == "sell_mw"
+    assert model.config.index_dtype == "int16"
+
+
+@pytest.mark.parametrize("n_dev", [2, 4])
+def test_sharded_gpu_layout_interpret(n_dev, monkeypatch):
+    """The sharded model set up as on the GPU (the flagship's layout, long
+    rows extracted per shard) runs the kernel in each shard (interpret
+    mode) and matches the oracle."""
+    from ehyb_spmv.parallel.spmv import make_sharded_apply
+
+    m = generate.with_dense_rows(generate.permuted(generate.poisson2d(64),
+                                                   seed=4), 2, density=0.3,
+                                 seed=6)
+    with monkeypatch.context() as mp:
+        mp.setattr(jax, "default_backend", lambda: "gpu")
+        model = ShardedEhybSpmv(EhybConfig(),
+                                mesh=make_mesh(n_dev)).setup(m)
+    assert model._kernel == "triton"
+    assert sum(s["nnz_long"] for s in model.sharded.stats["per_dev"]) > 0
+    _interpret_kernel(monkeypatch)
+    fn, arrays = make_sharded_apply(model.sharded, model.mesh, "float32",
+                                    kernel="triton")
     x = deterministic_x(m.dimension)
-    assert rel_error(model.matvec(x), oracle_spmv(m, x)) < 1e-5
-    assert model.bytes_model() > 0
+    y = model.recover_y(fn(arrays, model.prepare_x(x)))
+    assert rel_error(y, oracle_spmv(m, x)) < 5e-6
 
-
-def test_sharded_degree_split_iterate():
-    """The tuple-x chained-iteration path (bench protocol) does not drift
-    at eps=0 and agrees with the one-shot apply.
-
-    Chained repeats of the SAME compiled program must be bit-identical
-    (n=2 vs n=3: the fori body reruns on bit-identical input).  apply()
-    vs iterate() are two separately compiled XLA programs, and XLA's
-    fusion-context-dependent FMA contraction may differ between them at
-    the last ulp (observed on the CPU interpret path when the routed
-    kernel's inlined graph changed shape in round 5) — across programs
-    the contract is fp tolerance, not bit equality."""
-    from ehyb_spmv_gpu_tpu.parallel.hybrid import ShardedDegreeSplitSpmv
-
-    m = generate.random_general(4096, 24, seed=6, power_law=0.7)
-    model = ShardedDegreeSplitSpmv(
-        EhybConfig(window_rows=1024, artifact_cache=False),
-        mesh=make_mesh(2)).setup(m, threshold=32)
-    x_dev = model.prepare_x(deterministic_x(m.dimension))
-    y2 = model.iterate(x_dev, 2, eps=0.0)
-    y3 = model.iterate(x_dev, 3, eps=0.0)
-    np.testing.assert_array_equal(np.asarray(y2), np.asarray(y3))
-    y1 = np.asarray(model.apply(x_dev), dtype=np.float64)
-    d = np.abs(y1 - np.asarray(y3, dtype=np.float64))
-    denom = max(float(np.abs(y1).max()), 1e-30)
-    assert float(d.max()) / denom < 1e-6

@@ -3,14 +3,14 @@ round-trip + invariants as real unit tests)."""
 import numpy as np
 import pytest
 
-from ehyb_spmv_gpu_tpu.config import EhybConfig, WINDOW_ALIGN
-from ehyb_spmv_gpu_tpu.core.coo import deterministic_x, oracle_spmv
-from ehyb_spmv_gpu_tpu.core.planner import make_plan
-from ehyb_spmv_gpu_tpu.core.reorder import (identity_reordering,
+from ehyb_spmv.config import EhybConfig, WINDOW_ALIGN
+from ehyb_spmv.core.coo import deterministic_x, oracle_spmv
+from ehyb_spmv.core.planner import make_plan
+from ehyb_spmv.core.reorder import (identity_reordering,
                                             two_level_reorder,
                                             in_window_counts)
-from ehyb_spmv_gpu_tpu.io import generate
-from ehyb_spmv_gpu_tpu.partition import (edge_cut, partition_blocks,
+from ehyb_spmv.io import generate
+from ehyb_spmv.partition import (edge_cut, partition_blocks,
                                          partition_rows)
 
 
@@ -116,7 +116,7 @@ def test_edge_cut_blocks_vs_scrambled(scrambled):
 # --- ordering strategies (core/ordering.py) --------------------------------
 
 def test_rcm_reduces_bandwidth(scrambled):
-    from ehyb_spmv_gpu_tpu.core.ordering import rcm_order, reordering_from_order
+    from ehyb_spmv.core.ordering import rcm_order, reordering_from_order
 
     m = scrambled
     order = rcm_order(m)
@@ -132,7 +132,7 @@ def test_native_rcm_equivalence(scrambled, powerlaw_small, monkeypatch):
     """native/rcm.cpp must be bit-identical to the NumPy level-set RCM —
     cached artifacts are keyed on the ordering's OUTPUT staying stable, so a
     divergence would silently mix stale and fresh layouts."""
-    from ehyb_spmv_gpu_tpu.core.ordering import rcm_order
+    from ehyb_spmv.core.ordering import rcm_order
 
     for m in (scrambled, powerlaw_small):
         monkeypatch.setenv("EHYB_NATIVE_RCM", "0")
@@ -145,7 +145,7 @@ def test_native_rcm_equivalence(scrambled, powerlaw_small, monkeypatch):
 def test_native_adjacency_equivalence(scrambled, powerlaw_small, monkeypatch):
     """native ehyb_adjacency must match partition.py's NumPy formulation
     exactly: per-row ascending dedup'd neighbors, diagonal dropped."""
-    from ehyb_spmv_gpu_tpu.partition import adjacency_csr
+    from ehyb_spmv.partition import adjacency_csr
 
     for m in (scrambled, powerlaw_small):
         monkeypatch.setenv("EHYB_NATIVE_ADJ", "0")
@@ -159,8 +159,8 @@ def test_native_adjacency_equivalence(scrambled, powerlaw_small, monkeypatch):
 def test_native_rcm_disconnected_and_empty():
     """Multi-component + isolated-vertex graph: every component gets its own
     min-degree seed, isolated vertices order as singleton levels."""
-    from ehyb_spmv_gpu_tpu.core.coo import MatrixCOO
-    from ehyb_spmv_gpu_tpu.core.ordering import rcm_order
+    from ehyb_spmv.core.coo import MatrixCOO
+    from ehyb_spmv.core.ordering import rcm_order
 
     # two 3-cliques + 2 isolated vertices (diagonal-only rows)
     row = np.array([0, 0, 1, 1, 2, 2, 3, 3, 4, 4, 5, 5, 6, 7])
@@ -183,8 +183,8 @@ def test_native_rcm_disconnected_and_empty():
 
 
 def test_rcm_roundtrip(scrambled):
-    from ehyb_spmv_gpu_tpu.core.ordering import rcm_order, reordering_from_order
-    from ehyb_spmv_gpu_tpu.core.coo import deterministic_x, oracle_spmv
+    from ehyb_spmv.core.ordering import rcm_order, reordering_from_order
+    from ehyb_spmv.core.coo import deterministic_x, oracle_spmv
 
     r = reordering_from_order(rcm_order(scrambled), scrambled.dimension)
     x = deterministic_x(scrambled.dimension)
@@ -194,7 +194,7 @@ def test_rcm_roundtrip(scrambled):
 
 
 def test_estimator_prefers_banded(scrambled):
-    from ehyb_spmv_gpu_tpu.core.ordering import (estimate_mw_steps, rcm_order,
+    from ehyb_spmv.core.ordering import (estimate_mw_steps, rcm_order,
                                                  reordering_from_order)
 
     m = scrambled
@@ -206,9 +206,9 @@ def test_estimator_prefers_banded(scrambled):
 
 
 def test_pick_ordering_auto(scrambled):
-    from ehyb_spmv_gpu_tpu.core.ordering import pick_ordering
-    from ehyb_spmv_gpu_tpu.config import EhybConfig
-    from ehyb_spmv_gpu_tpu.core.planner import make_plan
+    from ehyb_spmv.core.ordering import pick_ordering
+    from ehyb_spmv.config import EhybConfig
+    from ehyb_spmv.core.planner import make_plan
 
     cfg = EhybConfig(window_rows=1024, body_layout="sell_mw")
     plan = make_plan(scrambled.dimension, cfg)
@@ -223,7 +223,7 @@ def test_native_partitioner_beats_blocks_on_scrambled(scrambled):
     regression in native/partition.cpp would otherwise pass the suite).
     The quality metric is the one mt-metis itself reports (r_edgecut,
     reordering.c:136)."""
-    from ehyb_spmv_gpu_tpu.partition import edge_cut, partition_rows
+    from ehyb_spmv.partition import edge_cut, partition_rows
 
     m = scrambled
     n_parts = 8
@@ -242,9 +242,9 @@ def test_native_partitioner_beats_blocks_on_scrambled(scrambled):
 def test_ordering_sampled_estimates(poisson_mid, monkeypatch):
     """The >20M-nnz sampled-estimate path must pick the same ordering as the
     full estimate (exercised by shrinking the cap)."""
-    import ehyb_spmv_gpu_tpu.core.ordering as od
-    from ehyb_spmv_gpu_tpu.config import EhybConfig, WINDOW_ALIGN
-    from ehyb_spmv_gpu_tpu.core.planner import make_plan
+    import ehyb_spmv.core.ordering as od
+    from ehyb_spmv.config import EhybConfig, WINDOW_ALIGN
+    from ehyb_spmv.core.planner import make_plan
 
     m = poisson_mid
     cfg = EhybConfig(window_rows=WINDOW_ALIGN, body_layout="sell_mw")
@@ -260,8 +260,8 @@ def test_partition_futility_skip(monkeypatch):
     """A gather-wall matrix (best RCM candidate >> the nnz floor) must not
     pay the partitioner build — the most expensive candidate shaves ~1% there
     (261 s on the powerlaw_1m split body); EHYB_ORDER_PART_SKIP=0 forces it."""
-    import ehyb_spmv_gpu_tpu.core.ordering as od
-    import ehyb_spmv_gpu_tpu.partition as pt
+    import ehyb_spmv.core.ordering as od
+    import ehyb_spmv.partition as pt
 
     m = generate.random_general(1 << 16, 8, seed=7)
     cfg = EhybConfig(window_rows=1024)
@@ -285,8 +285,8 @@ def test_partition_futility_gate_spares_recoverable_structure(monkeypatch):
     than natural — structure IS recoverable and the partition candidates
     are worth their build (measured 31 -> ~40 GFLOP/s there).  The gate's
     gather-wall signature is BOTH far-above-floor AND rcm ~ natural."""
-    import ehyb_spmv_gpu_tpu.core.ordering as od
-    import ehyb_spmv_gpu_tpu.partition as pt
+    import ehyb_spmv.core.ordering as od
+    import ehyb_spmv.partition as pt
 
     m = generate.permuted(generate.poisson2d(256), seed=5)
     cfg = EhybConfig(window_rows=1024)

@@ -6,11 +6,11 @@ import os
 import numpy as np
 import pytest
 
-import ehyb_spmv_gpu_tpu as ehyb
-from ehyb_spmv_gpu_tpu.config import EhybConfig
-from ehyb_spmv_gpu_tpu.core.coo import deterministic_x
-from ehyb_spmv_gpu_tpu.io import generate
-from ehyb_spmv_gpu_tpu.utils.profiling import (phase_breakdown,
+import ehyb_spmv as ehyb
+from ehyb_spmv.config import EhybConfig
+from ehyb_spmv.core.coo import deterministic_x
+from ehyb_spmv.io import generate
+from ehyb_spmv.utils.profiling import (phase_breakdown,
                                                roofline_report, trace)
 
 
@@ -49,7 +49,7 @@ def test_trace_capture(model_and_x, tmp_path):
 
 
 def test_cli_profile_flag(capsys):
-    from ehyb_spmv_gpu_tpu.cli import main
+    from ehyb_spmv.cli import main
 
     rc = main(["-g", "poisson2d_64", "-i", "2", "--platform", "cpu",
                "--model", "ehyb_xla", "--profile"])

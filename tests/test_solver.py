@@ -3,11 +3,11 @@ PRECOND/CG machinery, SURVEY.md §2)."""
 import numpy as np
 import pytest
 
-import ehyb_spmv_gpu_tpu as ehyb
-from ehyb_spmv_gpu_tpu.config import EhybConfig
-from ehyb_spmv_gpu_tpu.core.coo import deterministic_x, oracle_spmv
-from ehyb_spmv_gpu_tpu.io import generate
-from ehyb_spmv_gpu_tpu.models.solver import CgSolver, PowerIteration
+import ehyb_spmv as ehyb
+from ehyb_spmv.config import EhybConfig
+from ehyb_spmv.core.coo import deterministic_x, oracle_spmv
+from ehyb_spmv.io import generate
+from ehyb_spmv.models.solver import CgSolver, PowerIteration
 
 
 @pytest.fixture(scope="module")
@@ -51,7 +51,7 @@ def test_power_iteration_dominant_eig():
     m = generate.diag_matrix(512, 2.0)
     # make one eigenvalue dominant
     import numpy as np
-    from ehyb_spmv_gpu_tpu.core.coo import MatrixCOO
+    from ehyb_spmv.core.coo import MatrixCOO
 
     row = np.concatenate([m.row, [7]])
     col = np.concatenate([m.col, [7]])
@@ -67,10 +67,10 @@ def test_cg_checkpoint_resume(tmp_path):
     """Checkpoint/resume: interrupting after the first segment and re-solving
     from the checkpoint reaches the same solution (SURVEY.md §5 gap)."""
     import numpy as np
-    import ehyb_spmv_gpu_tpu as ehyb
-    from ehyb_spmv_gpu_tpu.config import EhybConfig
-    from ehyb_spmv_gpu_tpu.io import generate
-    from ehyb_spmv_gpu_tpu.models.solver import CgSolver
+    import ehyb_spmv as ehyb
+    from ehyb_spmv.config import EhybConfig
+    from ehyb_spmv.io import generate
+    from ehyb_spmv.models.solver import CgSolver
 
     m = generate.poisson2d(24)
     rng = np.random.default_rng(3)
@@ -100,10 +100,10 @@ def test_cg_checkpoint_fingerprint_and_cleanup(tmp_path):
     """Advisor r1: a checkpoint from a DIFFERENT problem must be ignored,
     and a converged solve must remove its checkpoint."""
     import numpy as np
-    import ehyb_spmv_gpu_tpu as ehyb
-    from ehyb_spmv_gpu_tpu.config import EhybConfig
-    from ehyb_spmv_gpu_tpu.io import generate
-    from ehyb_spmv_gpu_tpu.models.solver import CgSolver
+    import ehyb_spmv as ehyb
+    from ehyb_spmv.config import EhybConfig
+    from ehyb_spmv.io import generate
+    from ehyb_spmv.models.solver import CgSolver
 
     m = generate.poisson2d(16)
     rng = np.random.default_rng(4)
@@ -134,10 +134,10 @@ def test_cg_single_compile_across_segments(tmp_path):
     different checkpoint cadences reuse ONE compiled loop."""
     import jax
     import numpy as np
-    import ehyb_spmv_gpu_tpu as ehyb
-    from ehyb_spmv_gpu_tpu.config import EhybConfig
-    from ehyb_spmv_gpu_tpu.io import generate
-    from ehyb_spmv_gpu_tpu.models.solver import CgSolver
+    import ehyb_spmv as ehyb
+    from ehyb_spmv.config import EhybConfig
+    from ehyb_spmv.io import generate
+    from ehyb_spmv.models.solver import CgSolver
 
     m = generate.poisson2d(16)
     b = np.ones(m.dimension)
